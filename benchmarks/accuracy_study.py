@@ -7,7 +7,7 @@ this study builds the tighter case explicitly (VERDICT r4 item 3):
 
 * identical 1-factor OU dynamics fed to BOTH engines — the trinomial tree
   (quasi-exact dynamic program, float64, dense inventory grid) and the LSMC
-  engine (converged path count, production float32 kernels);
+  engine (converged path count, production float32 engine);
 * multiple seeds, so Monte-Carlo error and policy-flip noise are visible
   rather than averaged away;
 * an f32-vs-f64 drift check at the full path count on the SAME paths
@@ -16,9 +16,8 @@ this study builds the tighter case explicitly (VERDICT r4 item 3):
 LSMC is a lower-bound estimator, so the signed gap should sit slightly below
 zero; the study asserts |gap| <= 0.1 % per seed and prints the distribution.
 
-Run (TPU chip or CPU):   timeout 3600 python benchmarks/accuracy_study.py
-                         [num_sims] [seeds...]
-Writes ``benchmarks/results/accuracy_study_<stamp>.json``.
+Run:  python benchmarks/accuracy_study.py [num_sims] [seeds...]
+Prints one JSON line.  ``chip_smoke.py`` runs the same comparison on the card.
 """
 from __future__ import annotations
 
@@ -118,33 +117,24 @@ def main() -> None:
               f"rel={rel:+.3e} [{gaps[seed]['wall_s']}s]",
               file=sys.stderr, flush=True)
 
-    # f32-vs-f64 drift on the same seed and the SAME paths: the f64 engine
-    # runs the XLA path (Pallas kernels are f32), so this isolates precision
-    # + kernel-vs-XLA arithmetic.  The f64 backward scan materialises the
-    # [S, G] surface in f64 with no kernel aliasing — at 262k x G=500 that
-    # RESOURCE_EXHAUSTs a 16 GB chip — so the drift leg runs at a reduced
-    # path count with BOTH dtypes re-priced there (an f32-vs-f64 comparison
-    # is per-path-set; it does not need the converged count).
-    seed0 = seeds[0]
-    drift = None
-    drift_sims = min(num_sims, 65_536)
-    try:
-        import jax.numpy as jnp
+    # f32-vs-f64 drift on the same seed and the SAME paths isolates
+    # precision from Monte-Carlo error, so it needs no converged count.
+    import jax.numpy as jnp
 
-        npv32 = lsmc_value(storage, fwd, vols, drift_sims, seed0)
-        with jax.enable_x64(True):
-            npv64 = lsmc_value(storage, fwd, vols, drift_sims, seed0,
-                               dtype=jnp.float64)
-        drift = (npv32 - npv64) / npv64
-        print(f"# drift sims={drift_sims:,}: f64 {npv64:,.2f} vs f32 "
-              f"{npv32:,.2f} rel={drift:+.3e}", file=sys.stderr, flush=True)
-    except Exception as exc:  # noqa: BLE001 - drift leg is best-effort on TPU
-        print(f"# f64 drift leg failed (recorded null): {exc}", file=sys.stderr)
+    seed0 = seeds[0]
+    drift_sims = min(num_sims, 65_536)
+    npv32 = lsmc_value(storage, fwd, vols, drift_sims, seed0)
+    with jax.enable_x64(True):
+        npv64 = lsmc_value(storage, fwd, vols, drift_sims, seed0,
+                           dtype=jnp.float64)
+    drift = (npv32 - npv64) / npv64
+    print(f"# drift sims={drift_sims:,}: f64 {npv64:,.2f} vs f32 "
+          f"{npv32:,.2f} rel={drift:+.3e}", file=sys.stderr, flush=True)
 
     worst = max(abs(g["rel_gap"]) for g in gaps.values())
     line = {
         "metric": (
-            f"LSMC({num_sims:,} paths, f32 production kernels) vs trinomial "
+            f"LSMC({num_sims:,} paths, f32) vs trinomial "
             f"(f64, G={GRID}) on identical 1-factor OU dynamics, "
             f"{len(seeds)} seeds, backend={backend}"
         ),
@@ -158,12 +148,6 @@ def main() -> None:
         "backend": backend,
     }
     print(json.dumps(line))
-    outdir = os.path.join(os.path.dirname(__file__), "results")
-    os.makedirs(outdir, exist_ok=True)
-    stamp = time.strftime("%Y%m%dT%H%M%S")
-    with open(os.path.join(outdir, f"accuracy_study_{stamp}.json"), "w") as f:
-        json.dump(line, f, indent=2)
-        f.write("\n")
 
 
 if __name__ == "__main__":

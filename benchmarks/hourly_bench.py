@@ -1,20 +1,14 @@
-"""Pod-scale hourly benchmark (BASELINE.json configs[4]).
+"""Hourly benchmark (BASELINE.json configs[4]).
 
-Multi-year HOURLY storage (17,520 decision steps) x 250k ANTITHETIC paths —
-the one-chip pro-rata share of the pod-scale config's 1M paths / v5e-8 (2x
-past it, in fact: 1M / 8 chips = 125k per chip) — 3-factor seasonal, ratchets,
-full deltas + triggers, STREAMING (checkpoint-rematerialised) factor paths
-(the full [n, F, S] factor array would be ~52 GB; peak streamed span is
-~0.77 GB).  VERDICT r3 item 8: the round-3 measurements (37.2 s warm,
-ROUND3_NOTES.md) promoted from notes to a reproducible JSON-emitting artifact.
+Multi-year HOURLY storage (17,520 decision steps at 2 years) x 250k
+ANTITHETIC paths, 3-factor seasonal, ratchets, full deltas + triggers.  The
+full [n, F, S] factor array would be ~52 GB, past the device's path budget,
+so the engine streams factor paths from checkpointed OU states.  Fails when
+JAX finds no GPU.
 
-Prints ONE JSON line {"metric", "value", "unit", "vs_baseline", ...} like
-bench.py; vs_baseline scales the 10 s x 8-chip north-star budget by chip
-fraction, path fraction AND horizon (the north star is 365 daily steps; this
-config runs 48x the steps, so the pro-rata budget is 10 s * 8 * 0.25 * 48).
+Prints one JSON line naming the device.
 
-Run:  timeout 5400 python benchmarks/hourly_bench.py [num_sims] [years]
-Writes BENCH_hourly_<stamp>.json next to the repo root as a durable record.
+Run:  python benchmarks/hourly_bench.py [num_sims] [years]
 """
 from __future__ import annotations
 
@@ -67,22 +61,15 @@ def main() -> None:
     num_sims = int(sys.argv[1]) if len(sys.argv) > 1 else 250_000
     years = int(sys.argv[2]) if len(sys.argv) > 2 else 2
 
-    from bench import wait_for_backend
-
-    if not wait_for_backend():
-        print(json.dumps({"metric": "hourly bench failed (backend init)",
-                          "value": 0, "unit": "s", "vs_baseline": 0.0}))
-        return
-
-    # Force streaming at a span budget that keeps the peak span well under
-    # co-tenant-squeezed HBM (the engine would stream anyway at these sizes).
-    os.environ.setdefault("STORAGE_TPU_MAX_PATH_BYTES", "1.5e9")
-
-    import jax
+    from bench import device_record, require_gpu
 
     from storage_tpu import three_factor_seasonal_value
+    from storage_tpu.utils.compile_cache import use_compile_cache
 
-    num_chips = jax.device_count()
+    use_compile_cache(os.path.join(os.path.dirname(__file__), "..", ".jax_cache"))
+    import jax
+
+    require_gpu()
     storage, fwd, idx = build_case(years)
     n_steps = len(idx) - 1
 
@@ -107,43 +94,24 @@ def main() -> None:
         )
 
     t0 = time.perf_counter()
-    warm = once(seed=12)
-    print(f"# warm (incl. compiles): {time.perf_counter() - t0:.1f}s "
-          f"npv={warm.npv:,.0f}", file=sys.stderr)
-
+    once(seed=12)
+    setup = time.perf_counter() - t0
     t0 = time.perf_counter()
     res = once(seed=13)
     wall = time.perf_counter() - t0
     assert np.isfinite(res.npv) and np.isfinite(res.deltas).all()
-
-    budget_s = 10.0 * (8 / max(num_chips, 1)) * (num_sims / 1_000_000) * (n_steps / 365.0)
-    backend = jax.default_backend()
-    # Label honestly: a CPU smoke run must not read as a TPU measurement
-    # (an early artifact said "1 TPU chip(s)" for a CPU-backend run).
-    device_desc = (
-        f"{num_chips} TPU chip(s)" if backend == "tpu"
-        else f"{num_chips} {backend} device(s) [NOT TPU — smoke run]"
-    )
-    line = {
+    print(json.dumps({
         "metric": (
-            f"pod-scale hourly LSMC (BASELINE configs[4]): {years}-yr hourly "
-            f"({n_steps:,} steps) x {num_sims:,} antithetic paths, streamed factor "
-            f"source, full deltas+triggers, {device_desc}; pro-rata "
-            f"budget {budget_s:.0f}s"
+            f"hourly LSMC (BASELINE configs[4]): {years}-yr hourly "
+            f"({n_steps:,} steps) x {num_sims:,} antithetic paths, full "
+            "deltas+triggers, one warm valuation"
         ),
-        "value": round(wall, 3),
+        "value": wall,
         "unit": "s",
-        "vs_baseline": round(budget_s / wall, 3),
-        "npv": round(float(res.npv), 1),
-        "steps_per_ms": round(n_steps / wall / 1000.0, 3),
-        "backend": backend,
-    }
-    print(json.dumps(line))
-    stamp = time.strftime("%Y%m%dT%H%M%S")
-    with open(os.path.join(os.path.dirname(__file__), "..",
-                           f"BENCH_hourly_{stamp}.json"), "w") as f:
-        json.dump(line, f)
-        f.write("\n")
+        "setup_s": setup,
+        "npv": float(res.npv),
+        "device": device_record(jax.devices()[:1]),
+    }))
 
 
 if __name__ == "__main__":

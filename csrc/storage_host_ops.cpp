@@ -1,6 +1,6 @@
 // Native host-side kernels for storage_tpu.
 //
-// The TPU owns all tensor math (simulation, regressions, DP scans); what
+// The accelerator owns all tensor math (simulation, regressions, DP scans); what
 // remains on the host is the sequential, branchy setup work that the
 // reference keeps in C#/MKL: the inventory-space reduction with its
 // per-period, per-constraint bound solving (reference

@@ -9,14 +9,14 @@ cells = []
 cells.append(md(
 """# Valuing a gas storage facility with `storage_tpu`
 
-End-to-end walkthrough of the TPU-native storage-valuation library: define a
+End-to-end walkthrough of the storage-valuation library: define a
 ratcheted storage facility, build forward/interest-rate curves, value it under
 the 3-factor seasonal spot model with least-squares Monte Carlo (LSMC), and
 inspect deltas, the expected operation profile and trigger prices.  The inputs
 mirror the reference README worked example (`examples/readme_example.py`).
 
-The same notebook runs unchanged on CPU (slow) or on a TPU chip (fast): every
-engine is jit-compiled JAX with fused Pallas kernels on the hot paths."""))
+The same notebook runs unchanged on CPU (slow) or on a GPU (fast): every
+engine is jit-compiled JAX."""))
 
 cells.append(code(
 """import os, sys
@@ -171,7 +171,7 @@ cells.append(md(
 * `examples/storage_gui.py` — interactive ipywidgets GUI with editable curve
   and ratchet tables (`multi_factor_gui.ipynb` launches it).
 * `examples/async_and_cache.py` — async valuation with progress/cancellation.
-* `examples/multichip_sharding.py` — scaling the path axis over a TPU mesh.
+* `examples/multichip_sharding.py` — scaling the path axis over a device mesh.
 * `docs/valuation_math.md` — the valuation math and numerical-precision notes."""))
 
 nb["cells"] = cells

@@ -1,7 +1,7 @@
 """Path-sharded valuation over a device mesh.
 
-On real hardware the mesh spans TPU chips; for a workstation demo force
-virtual CPU devices first:
+On real hardware the mesh spans the GPUs of a host; for a workstation demo
+force virtual CPU devices first:
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/multichip_sharding.py

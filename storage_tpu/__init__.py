@@ -1,9 +1,9 @@
-"""storage_tpu — TPU-native commodity storage valuation.
+"""storage_tpu — commodity storage valuation in JAX.
 
 A from-scratch JAX/XLA re-build of the capabilities of ``cmdty/storage``
 (C#/.NET + MKL + pythonnet): multi-factor Least-Squares Monte Carlo, intrinsic
 and trinomial-tree valuation of commodity storage facilities, with Monte-Carlo
-paths as the data-parallel axis over TPU device meshes.
+paths as the data-parallel axis over device meshes.
 
 Public API mirrors ``cmdty_storage/__init__.py:24-35``.
 """
@@ -47,7 +47,7 @@ from .utils.basis import (
 
 # Single source of truth for the package version: pyproject.toml reads this
 # attribute via setuptools' dynamic-version mechanism.
-__version__ = "0.5.0"
+__version__ = "0.6.0"
 
 logger: logging.Logger = logging.getLogger("storage_tpu")
 logger.addHandler(logging.NullHandler())

@@ -4,7 +4,7 @@ Reference: ``TreeStorageValuation<T>.Calculate``
 (``TreeValuation/TreeStorageValuation.cs:143-342``) and the Python wrapper
 ``trinomial_value`` / ``trinomial_deltas`` (``cmdty_storage/trinomial.py``).
 
-TPU formulation: the generic DP over a recombining tree becomes a ``lax.scan``
+Array formulation: the generic DP over a recombining tree becomes a ``lax.scan``
 over periods carrying the value function ``V [K, G]`` (price levels x
 inventory grid).  Per period: the expected continuation per CURRENT node is a
 probability-weighted gather over the three branch destinations (linear in V,
@@ -301,7 +301,7 @@ def trinomial_deltas(
     ``jax.enable_x64`` scope with the reference's 1e-5 bump
     (``trinomial.py:100``) — the tree DP is tiny, so the extra precision costs
     nothing, and bump-and-revalue accuracy is mantissa-bound.  Pass
-    ``dtype=jnp.float32`` to force the MXU-friendly single-precision mode,
+    ``dtype=jnp.float32`` to force the single-precision mode,
     where ``delta_shift`` defaults to 0.01 instead (1e-5 sits below a float32
     NPV's resolution; bump-size studies show 0.01 recovers the f64 small-bump
     deltas to ~1e-3).

@@ -3,7 +3,7 @@
 The reference ships an Excel-DNA add-in whose worksheet functions take cell
 RANGES (2-D arrays of dates/numbers), cache objects under string handles and
 stream async results back into cells (SURVEY.md §2.4).  The .xll binary
-itself is out of scope for a TPU library, but its FUNCTION SURFACE is not:
+itself is out of scope for a Python library, but its FUNCTION SURFACE is not:
 this module exposes each ``cmdty.*`` UDF as a plain Python callable with the
 same name, argument order and range conventions, over the same named-handle
 cache and async runtime (:mod:`storage_tpu.runtime`), so spreadsheet-style

@@ -1,6 +1,6 @@
 """Multi-factor spot-price path simulation (JAX).
 
-TPU-native replacement for the reference's native (NuGet, MKL-backed)
+JAX replacement for the reference's native (NuGet, MKL-backed)
 ``Cmdty.Core.Simulation.MultiFactor.MultiFactorSpotPriceSimulator`` (call
 sites: ``LsmcValuationParameters.cs:163-178``, ``multi_factor.py:49-92``).
 
@@ -160,8 +160,8 @@ def _scan_factor_blocks(key, y0, decay, chol, start, num_steps: int,
 
     Scans in UNROLLED BLOCKS of ``_DRAW_BLOCK`` steps: a plain per-step scan
     stacks its outputs with one [1, F, S] dynamic-update-slice per step,
-    which the backend runs far below HBM bandwidth (~10x) — at 1M sims the
-    stacking dominated the whole simulation.  Each iteration instead writes
+    which runs far below memory bandwidth — at 1M sims the stacking
+    dominated the whole simulation.  Each iteration instead writes
     one contiguous [16, F, S] block.  ``decay``/``chol`` are the FULL-horizon
     coefficient arrays (tiny), indexed absolutely.
     """
@@ -214,40 +214,26 @@ def _scan_factor_blocks(key, y0, decay, chol, start, num_steps: int,
     return y_last, factors_main
 
 
-@partial(jax.jit, static_argnames=("num_sims", "antithetic", "pad_to"))
+@partial(jax.jit, static_argnames=("num_sims", "antithetic"))
 def _simulate_factor_kernel(
     key,
     decay,  # [n, F]
     chol,  # [n, F, F]
     num_sims: int,
     antithetic: bool,
-    pad_to: Optional[int] = None,
 ):
     """Device kernel: scan OU factor states over time.
 
     Returns ``factors [n, F, S]``.  Spot prices are a per-period deterministic
     transform of the factors (``exp(drift_k + vols_k . Y_k)``) and are
     recomputed where needed instead of stored — at production path counts the
-    spot panel alone is GBs of HBM.
-
-    ``pad_to`` zero-pads the sims axis to ``[n, F, pad_to]`` INSIDE this
-    program.  The Pallas engines lane-pad their inputs to the kernel block
-    multiple; doing it here (where nothing else is resident) instead of in
-    the backward/forward programs (where the unpadded original would stay
-    pinned alongside the padded copy) cuts those programs' HBM peak by a
-    full path-set copy each — the whole-horizon 1M materialised config OOMed
-    on exactly that (round-4 mem_analysis_probe: backward temp 11.0 GB, of
-    which 4.1 GB was the in-program padded copy riding the scan carry).
-    The true draws are unchanged: threefry blocks are keyed on ``num_sims``,
-    and padded lanes are masked out of every kernel reduction.
+    spot panel alone is GBs of device memory.
     """
     n, num_factors = decay.shape
     y0 = jnp.zeros((num_factors, num_sims), dtype=decay.dtype)
     _, factors = _scan_factor_blocks(
         key, y0, decay, chol, 0, n, num_sims, antithetic
     )
-    if pad_to is not None and pad_to > num_sims:
-        factors = jnp.pad(factors, ((0, 0), (0, 0), (0, pad_to - num_sims)))
     return factors
 
 
@@ -268,14 +254,8 @@ def simulate_factor_paths(
     antithetic: bool = False,
     dtype=jnp.float32,
     key: Optional[jax.Array] = None,
-    pad_to: Optional[int] = None,
 ) -> jax.Array:
-    """Simulate Markov factor state paths ``[n, F, S]``.
-
-    ``pad_to`` zero-pads the sims axis to that width inside the simulation
-    program (see :func:`_simulate_factor_kernel`); draws for the true
-    ``num_sims`` lanes are bit-identical either way.
-    """
+    """Simulate Markov factor state paths ``[n, F, S]``."""
     if key is None:
         if seed is None:
             seed = np.random.SeedSequence().entropy % (2**63)
@@ -286,7 +266,6 @@ def simulate_factor_paths(
         jnp.asarray(coeffs.chol, dtype),
         num_sims=int(num_sims),
         antithetic=bool(antithetic),
-        pad_to=None if pad_to is None else int(pad_to),
     )
 
 

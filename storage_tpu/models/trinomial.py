@@ -1,6 +1,6 @@
 """One-factor trinomial tree construction.
 
-TPU-native replacement for the reference's native (NuGet)
+JAX replacement for the reference's native (NuGet)
 ``Cmdty.Core.Trees.OneFactorTrinomialTree.CreateTree`` (call site:
 ``TreeStorageValuationExtensions.cs:93-102``): a recombining trinomial tree on
 an Ornstein-Uhlenbeck log-spot deviation process with seasonal (per-period)

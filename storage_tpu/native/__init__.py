@@ -1,6 +1,6 @@
 """Native (C++) host kernels.
 
-The TPU owns all tensor math; the native library accelerates the sequential
+The accelerator owns all tensor math; the native library accelerates the sequential
 host-side setup path — currently the inventory-space reduction
 (``csrc/storage_host_ops.cpp``), the analogue of the reference's natively
 compiled ``StorageHelper``/constraint machinery (MKL-backed .NET, SURVEY.md

@@ -1,2 +1,2 @@
 """Algorithm kernels: decision sets, inventory-space reduction, ratchet and
-grid interpolation, regression (the TPU re-design of ``StorageHelper.cs``)."""
+grid interpolation, regression (the array re-design of ``StorageHelper.cs``)."""

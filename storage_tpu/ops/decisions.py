@@ -3,7 +3,7 @@
 The reference computes a variable-length decision set per (period, inventory):
 clipped {max-withdraw, 0, max-inject} plus ``extra_decisions`` equally-spaced
 intermediate rates per side (``StorageHelper.CalculateBangBangDecisionSet``,
-``StorageHelper.cs:109-204``).  Variable-length arrays do not jit, so the TPU
+``StorageHelper.cs:109-204``).  Variable-length arrays do not jit, so the
 kernel always produces a fixed width ``2*extra + 3``; when the feasible range
 does not span zero (forced injection/withdrawal) the missing zero decision and
 its side's extras are replaced by duplicates of existing decisions, which leave

@@ -4,7 +4,7 @@ The engines hold value functions on per-period inventory grids and linearly
 interpolate them at post-decision inventories.  The reference does this with a
 per-query binary search (``StorageHelper.BisectInventorySpace``,
 ``StorageHelper.cs:280-314``) plus linear weights
-(``LsmcStorageValuation.cs:722-741``).  The TPU design uses **uniform
+(``LsmcStorageValuation.cs:722-741``).  This design uses **uniform
 (linspace) per-period grids**, so the bracketing index is O(1) arithmetic —
 ``(x - lo) / step`` — with no search, no data-dependent control flow, and
 perfect vectorisation over sims × grid points × decisions.

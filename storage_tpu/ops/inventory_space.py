@@ -11,7 +11,7 @@ the per-constraint ``InventorySpaceUpperBound``/``LowerBound`` solvers
 
 This runs **once per valuation on the host** in float64 NumPy — it depends only
 on the storage configuration and starting inventory, not on simulated paths,
-so it stays off the TPU (see SURVEY.md §7 "Hard parts").
+so it stays off the accelerator (see SURVEY.md §7 "Hard parts").
 """
 from __future__ import annotations
 

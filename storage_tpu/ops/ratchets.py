@@ -2,7 +2,7 @@
 
 The reference dispatches on constraint class per period
 (``ConstantInjectWithdrawConstraint`` / ``PiecewiseLinearInjectWithdrawConstraint`` /
-``StepInjectWithdrawConstraint``; ``InjectWithdrawConstraints/*.cs``).  The TPU
+``StepInjectWithdrawConstraint``; ``InjectWithdrawConstraints/*.cs``).  Here the
 representation is a single dense pillar tensor ``[num_steps, P, 3]`` of
 ``(inventory, min_rate, max_rate)`` rows, padded by repeating the final pillar,
 plus one interpolation mode for the whole storage.  Rate lookup is then a

@@ -2,12 +2,12 @@
 
 The reference computes a thin-QR pseudo-inverse of the design matrix per
 period and applies it to each next-inventory value vector
-(``LsmcStorageValuation.cs:185-205``, MKL-backed).  The TPU formulation uses
+(``LsmcStorageValuation.cs:185-205``, MKL-backed).  This formulation uses
 **normal equations with standardised basis columns**:
 
     coeffs = (Xs'Xs + lam I)^-1  Xs' V       for all grid columns at once,
 
-which is (a) a pair of large MXU matmuls ``[B,S]x[S,B]`` and ``[B,S]x[S,G]``
+which is (a) a pair of large matmuls ``[B,S]x[S,B]`` and ``[B,S]x[S,G]``
 followed by a tiny ``[B,B]`` Cholesky solve, and (b) the distributed-ready
 form: under a path-sharded mesh both Gram and cross products are ``psum``
 reductions over shards (SURVEY.md §2.2 "Parallelism strategies").
@@ -113,11 +113,11 @@ def fit_continuation(design_std, values, ridge: float = 1e-6):
     Returns:
       coeffs ``[B, G]`` such that ``design_std @ coeffs`` estimates
       ``E[values | regressors]`` — the pseudo-inverse product of
-      ``LsmcStorageValuation.cs:186-199`` reformulated for the MXU.
+      ``LsmcStorageValuation.cs:186-199`` reformulated as matmuls.
     """
     num_sims = design_std.shape[0]
-    # HIGHEST precision: the TPU MXU defaults to bfloat16 multiplies, whose
-    # ~8-bit mantissa visibly degrades the regression fit and hence the
+    # HIGHEST precision: full f32 products, never TF32 or bf16 passes, whose
+    # short mantissa visibly degrades the regression fit and hence the
     # exercise policy (the NPV stays a valid lower bound, just a worse one).
     gram = jnp.dot(
         design_std.T, design_std,

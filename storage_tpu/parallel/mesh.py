@@ -1,7 +1,7 @@
 """Device-mesh scale-out over the Monte-Carlo paths axis.
 
 The reference is single-process (SURVEY.md §2.2: its only concurrency is MKL
-threading inside QR).  The TPU-native scale-out axis is **paths**: simulations
+threading inside QR).  The scale-out axis here is **paths**: simulations
 are embarrassingly parallel except for the per-period regression reductions
 (Gram/cross products) and result means, which become cross-shard ``psum``s.
 
@@ -9,8 +9,10 @@ Design: everything in the LSMC engine treats sims as the leading batch axis,
 so scale-out is pure GSPMD — place the ``[.., S]``/``[S, G]`` arrays on a
 1-D ``Mesh(('paths',))`` with the sims axis sharded, jit as usual, and XLA
 inserts ``all-reduce`` for ``X^T X``, ``X^T V`` and every ``mean`` over sims,
-riding ICI.  No NCCL-style communication code exists to translate; shardings
-are data placement plus compiler-inserted collectives.
+which it hands to NCCL on GPUs.  Every card of a host reaches every other at
+the same NVLink rate, so the 1-D mesh needs no topology.  No communication
+code exists in the library; shardings are data placement plus
+compiler-inserted collectives.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Asynchronous valuation runtime.
 
-TPU-native equivalent of the reference Excel add-in's calculation plumbing —
+Equivalent of the reference Excel add-in's calculation plumbing —
 the only place the reference has async execution, progress streaming and
 cancellation from a front-end (SURVEY.md §3.5):
 
@@ -11,7 +11,7 @@ cancellation from a front-end (SURVEY.md §3.5):
   objects and results (``MultiFactorXl.cs:87-111`` create-and-cache,
   ``SubscribeResultProperty`` reads properties off cached results).
 
-The Excel .xll layer itself is out of scope for a TPU library (SURVEY.md §7);
+The Excel .xll layer itself is out of scope for a Python library (SURVEY.md §7);
 these primitives are what notebook/GUI/service front-ends build on instead of
 RTD observables.
 """

@@ -1,6 +1,6 @@
 """The commodity-storage entity.
 
-TPU-native replacement for the reference's ``CmdtyStorage<T>`` C# entity +
+Replacement for the reference's ``CmdtyStorage<T>`` C# entity +
 fluent builder (``StorageEntity/CmdtyStorage.cs:39-569``) and the Python
 wrapper class (``cmdty_storage/cmdty_storage.py:58-278``).  The reference
 represents every parameter as an opaque ``Func<T, ...>``; the only thing any

@@ -2,7 +2,7 @@
 
 The reference parses strings such as ``'1 + s + x_st + x_st**2 + s*x_st'`` and
 compiles each monomial with Roslyn C# scripting at runtime
-(``BasisFunctionsBuilder.cs:90-131``, ``Sim.cs:30-45``).  On TPU no codegen is
+(``BasisFunctionsBuilder.cs:90-131``, ``Sim.cs:30-45``).  Here no codegen is
 needed: each monomial reduces to a pair ``(spot_power, factor_powers)`` and the
 design matrix is built with vectorised ``jnp`` power/product ops
 (:func:`storage_tpu.ops.regression.design_matrix`).

@@ -1,6 +1,6 @@
 """Discounting utilities.
 
-TPU-native equivalent of the reference's Act/365 continuously-compounded
+Equivalent of the reference's Act/365 continuously-compounded
 discounter factories (``StorageHelper.cs:251-276``) and the per-period
 discount-factor memoisation inside the valuation engines
 (``LsmcStorageValuation.cs:131-143``).  Because all cash-flow dates are known

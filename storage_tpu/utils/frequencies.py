@@ -1,6 +1,6 @@
 """Calendar frequency registry.
 
-TPU-native replacement for the reference's ``Cmdty.TimePeriodValueTypes`` period
+Replacement for the reference's ``Cmdty.TimePeriodValueTypes`` period
 types (QuarterHour/HalfHour/Hour/Day/Month/Quarter) and the Python wrapper's
 ``FREQ_TO_PERIOD_TYPE`` dict (reference: ``cmdty_storage/utils.py:118-133``).
 

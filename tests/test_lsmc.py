@@ -303,7 +303,6 @@ class TestProfileSink:
             return_sim_panels=False, profile_sink=captured.append,
         )
         (sw,) = captured
-        assert sw.sync is True
         total = sw.elapsed("All")
         assert total > 0
         for phase in ("RegressionPriceSimulation", "ValuationPriceSimulation",
@@ -496,13 +495,10 @@ class TestPolicyReprice:
         assert float(res_a2.npv) == pytest.approx(float(res_a.npv), rel=1e-6)
 
 
-def test_scan_split_is_lossless(monkeypatch):
-    """The overflow-safe sub-scan splitting (engines/lsmc.py
-    _MAX_SCAN_ELEMENTS) must be value-neutral: forcing many tiny sub-scans
-    reproduces the single-scan results exactly (regression lock for the
-    silently-zeroing backend failure the constant works around)."""
-    import storage_tpu.engines.lsmc as lsmc_mod
-
+def test_scan_split_is_lossless():
+    """Splitting the horizon into sub-scans must be value-neutral: the
+    chunked driver (progress hooks between ~3-step sub-scans) reproduces the
+    single-scan materialised run."""
     storage = CmdtyStorage(
         "D", "2021-01-01", "2021-02-20",
         injection_cost=0.2, withdrawal_cost=0.3,
@@ -513,84 +509,20 @@ def test_scan_split_is_lossless(monkeypatch):
     fwd = pd.Series(19.0 + 2.0 * np.cos(np.arange(len(idx)) / 5.0), index=idx)
     vol = pd.Series(0.6, index=idx)
 
-    def run():
+    def run(**kwargs):
         return multi_factor_value(
             storage, "2021-01-01", 400.0, fwd, None, None,
             factors=[(3.0, vol)], factor_corrs=None,
             num_sims=256, basis_funcs="1 + x0 + x0**2",
-            discount_deltas=False, seed=9, return_sim_panels=False,
+            discount_deltas=False, seed=9, return_sim_panels=False, **kwargs,
         )
 
     base = run()
-    # 256 sims x 100 grid = 25,600 elements/step -> cap of 80,000 forces
-    # sub-scans of ~3 steps each across the 50-step horizon.
-    monkeypatch.setattr(lsmc_mod, "_MAX_SCAN_ELEMENTS", 80_000)
-    split = run()
+    # Progress hooks route through the chunked driver: 20 sub-scans across
+    # the 50-step horizon.
+    split = run(on_progress_update=lambda frac: None)
     assert split.npv == pytest.approx(base.npv, rel=1e-6)
     assert np.allclose(split.deltas.values, base.deltas.values, atol=1e-4)
-
-
-# --------------------------------------------------------------------------- #
-# 1/128 interp-weight quantization bound (VERDICT r2 #5)                      #
-# --------------------------------------------------------------------------- #
-
-
-def _ratcheted_3f_value(num_sims=2048, **kwargs):
-    """Ratcheted 3-factor config for quantization-impact measurement."""
-    from storage_tpu import RatchetInterp, three_factor_seasonal_value
-
-    storage = CmdtyStorage(
-        "D", "2021-01-01", "2021-04-01",
-        injection_cost=0.1, withdrawal_cost=0.2,
-        ratchets=[
-            (
-                "2021-01-01",
-                [(0.0, -50.0, 70.0), (1000.0, -50.0, 70.0), (2500.0, -80.0, 40.0)],
-            )
-        ],
-        ratchet_interp=RatchetInterp.LINEAR,
-    )
-    idx = pd.period_range("2021-01-01", "2021-04-01", freq="D")
-    fwd = pd.Series(18.0 + 4.0 * np.cos(np.arange(len(idx)) / 10.0), index=idx)
-    return three_factor_seasonal_value(
-        storage, "2021-01-01", 500.0, fwd, 0.03, None,
-        spot_mean_reversion=12.0, spot_vol=0.8, long_term_vol=0.2, seasonal_vol=0.4,
-        num_sims=num_sims, basis_funcs="1 + s + x_st + x_lt + x_sw + s**2",
-        discount_deltas=False, seed=7, return_sim_panels=False, **kwargs,
-    )
-
-
-class TestWeightQuantization:
-    """The Pallas kernels quantize interpolation weights to multiples of 1/128
-    (exact bf16 representability).  These tests MEASURE that deviation instead
-    of asserting it in a comment, and pin that the engine's XLA fallback
-    defaults to the reference-exact unquantized interpolation
-    (ADVICE r2: keep CPU/f64 runs exact)."""
-
-    def test_quantization_error_bounded(self, monkeypatch):
-        exact = _ratcheted_3f_value()
-        monkeypatch.setenv("STORAGE_TPU_QUANTIZE_WEIGHTS", "1")
-        quantized = _ratcheted_3f_value()
-        # Bound cited in docs/valuation_math.md ("Interpolation-weight
-        # quantization"): the half-cell weight shift is <= 1/256 of a grid
-        # cell, which perturbs the lower-bound NPV at the sub-0.1% level and
-        # per-period deltas by at most a few near-indifferent policy flips.
-        assert quantized.npv == pytest.approx(exact.npv, rel=1e-3)
-        max_rate = 80.0
-        diff = (quantized.deltas - exact.deltas).abs()
-        assert float(diff.max()) <= 0.05 * max_rate
-        assert float(diff.mean()) <= 0.01 * max_rate
-
-    def test_xla_fallback_defaults_exact(self):
-        from storage_tpu.engines.lsmc import _xla_quantize_weights
-
-        assert _xla_quantize_weights() is False
-
-    def test_env_forces_quantized(self, monkeypatch):
-        from storage_tpu.engines.lsmc import _xla_quantize_weights
-
-        monkeypatch.setenv("STORAGE_TPU_QUANTIZE_WEIGHTS", "1")
-        assert _xla_quantize_weights() is True
 
 
 # --------------------------------------------------------------------------- #
@@ -599,8 +531,8 @@ class TestWeightQuantization:
 
 
 class TestBackwardHealthProbe:
-    """A silently-zeroed value surface (the known scan-overflow backend
-    signature) must raise, not warn: a wrong NPV with a buried warning is
+    """A silently-zeroed value surface (the signature of a zeroed scan
+    carry) must raise, not warn: a wrong NPV with a buried warning is
     worse than an exception."""
 
     def _arrays(self, vbars_np):
@@ -664,7 +596,7 @@ class TestBackwardHealthProbe:
 
 class TestForwardHealthProbe:
     """Forward-side twin (ADVICE r3 high): a zero per-sim PV vector with a
-    non-zero backward estimate is the scan-overflow signature."""
+    non-zero backward estimate is the zeroed-carry signature."""
 
     def test_zero_pv_nonzero_backward_raises(self):
         import jax.numpy as jnp
@@ -714,7 +646,7 @@ class TestForwardHealthProbe:
         # A facility whose entire value is terminal (do-nothing optimal at
         # every step + terminal_storage_npv): zero decision PV, non-zero
         # backward estimate, but the inventory carry holds the starting
-        # inventory — NOT the scan-overflow signature (which zeroes the
+        # inventory — NOT the zeroed-carry signature (which zeroes the
         # whole carry, inventory included).
         import jax.numpy as jnp
 

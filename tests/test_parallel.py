@@ -120,58 +120,3 @@ def test_ratcheted_three_factor_single_vs_multi_device():
         multi.expected_profile["inventory"] - single.expected_profile["inventory"]
     ).abs()
     assert float(prof_diff.max()) <= 0.02 * 2500.0  # 2% of max inventory
-
-
-class TestPallasUnderMesh:
-    """The fused Pallas kernels must compose with the paths mesh (shard_map
-    per-shard kernels + psum reductions), not fall back to the slow XLA path
-    (VERDICT round-1 'missing #2')."""
-
-    def test_eligibility_allows_mesh(self, monkeypatch):
-        monkeypatch.setenv("STORAGE_TPU_PALLAS", "interpret")
-        import jax.numpy as jnp
-
-        from storage_tpu.engines.lsmc import (
-            _pallas_backward_eligible,
-            _pallas_forward_eligible,
-        )
-
-        mesh = paths_mesh()
-        got = _pallas_backward_eligible(mesh, jnp.float32, 512, 100)
-        assert got is not None and got[1] is True
-        # Non-divisible sim counts fall back rather than crash.
-        assert _pallas_backward_eligible(mesh, jnp.float32, 513, 100) is None
-
-    def test_mesh_pallas_parity_constant_rates(self, monkeypatch):
-        # Hold the interp-weight discretisation equal across legs: the XLA
-        # fallback defaults to exact weights while the kernel quantizes to
-        # 1/128, so forcing quantization on the XLA leg isolates what this
-        # test measures (kernel vs XLA arithmetic, not discretisation — that
-        # deviation is bounded by test_lsmc.py::TestWeightQuantization).
-        monkeypatch.setenv("STORAGE_TPU_QUANTIZE_WEIGHTS", "1")
-        xla = _valuation(mesh=paths_mesh(), num_sims=512)
-        monkeypatch.setenv("STORAGE_TPU_PALLAS", "interpret")
-        pallas = _valuation(mesh=paths_mesh(), num_sims=512)
-        # 5e-4 at 512 sims: both paths are valid lower-bound estimators whose
-        # near-indifferent policy flips differ by rounding; the gap shrinks
-        # ~20x by 4096 sims (checked when the tolerance was set).
-        assert pallas.npv == pytest.approx(xla.npv, rel=5e-4)
-        # Pointwise deltas may flip at near-indifferent sims (the kernel's
-        # bf16_3x dots vs XLA HIGHEST); bound per-period flips by 10% of the
-        # max rate and their average much tighter.
-        diff = (pallas.deltas - xla.deltas).abs()
-        assert float(diff.max()) <= 0.10 * 80.0
-        assert float(diff.mean()) <= 0.02 * 80.0
-
-    def test_mesh_pallas_parity_ratcheted_three_factor(self, monkeypatch):
-        # Equal-discretisation comparison (see constant-rates note above).
-        monkeypatch.setenv("STORAGE_TPU_QUANTIZE_WEIGHTS", "1")
-        # return_sim_panels=False so the fused forward kernel engages.
-        xla = _ratchet_3f_valuation(mesh=paths_mesh(), return_sim_panels=False)
-        monkeypatch.setenv("STORAGE_TPU_PALLAS", "interpret")
-        pallas = _ratchet_3f_valuation(mesh=paths_mesh(), return_sim_panels=False)
-        # At 512 sims a handful of near-indifferent policy flips move the
-        # lower-bound NPV by a few 1e-4 relative; both paths are valid
-        # estimators (the flips vanish as sims grow).
-        assert pallas.npv == pytest.approx(xla.npv, rel=1e-3)
-        assert np.isfinite(pallas.trigger_prices["inject_trigger_price"]).any()

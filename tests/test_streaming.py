@@ -2,7 +2,7 @@
 
 Long-horizon x production-path configs (SURVEY.md §5 long-context row: up to
 8,760 hourly steps) cannot materialise the full [n, F, S] factor array in
-HBM; the engine re-simulates spans from checkpointed OU states instead
+device memory; the engine re-simulates spans from checkpointed OU states instead
 (``models/simulation.py StreamingFactorSource``).  Correctness rests on two
 properties tested here: span regeneration is BIT-identical to the monolithic
 kernel (per-block threefry keying), and a streamed valuation agrees with the
@@ -131,32 +131,22 @@ class TestStreamedValuation:
             )
 
     def test_streamed_meshed_pallas_matches_materialised_meshless(self, monkeypatch):
-        """VERDICT r3 item 9: the full production composition — streaming
-        factor source + paths mesh + fused Pallas kernels — in one test.
-        Both legs run the same kernels (interpret on CPU) with the same
-        weight discretisation.  At 512 sims the lower-bound estimator is
-        sensitive to near-tie policy flips: the chunked driver re-solves the
-        span-entry regressions exactly (vs the whole program's in-kernel
-        partials) and the mesh changes shard block sizes, each flipping a
-        handful of near-indifferent decisions — measured rel diff 5.5e-3 at
-        512 sims shrinking to 9.7e-5 at 4096 (see the slow test below), so
-        this is Monte-Carlo-vanishing noise, not bias (the hardware probe
-        measured the mesh composition bit-equal on one device,
-        benchmarks/probes/mesh_compiled_probe.py)."""
+        """The full production composition — streaming factor source +
+        paths mesh + chunked driver — against the materialised meshless run,
+        both on the engine's XLA route.  At 512 sims the lower-bound
+        estimator is sensitive to near-tie policy flips: the mesh changes
+        the reduction order of every regression and mean, flipping a handful
+        of near-indifferent decisions — Monte-Carlo-vanishing noise, not
+        bias (the slow test below pins the convergence at 4096 sims)."""
         from storage_tpu.parallel.mesh import paths_mesh
 
-        monkeypatch.setenv("STORAGE_TPU_PALLAS", "interpret")
-        monkeypatch.setenv("STORAGE_TPU_QUANTIZE_WEIGHTS", "1")
         base = _value()
         monkeypatch.setenv("STORAGE_TPU_MAX_PATH_BYTES", "1000")
         streamed = _value(mesh=paths_mesh())
         assert streamed.npv == pytest.approx(base.npv, rel=1e-2)
-        # Pointwise deltas flip discretely at near-indifferent sims (measured:
-        # 5 of 182 periods, max 12.3 = 15% of the 80 max rate under the
-        # HIGHEST-precision kernels; 20.1 = 25.1% under the split3 defaults,
-        # Aug 19 — a different handful of near-ties flips, same class);
-        # bound each flip by 35% of the max rate and the average much
-        # tighter.  The 4096-sim slow test below pins the convergence.
+        # Pointwise deltas flip discretely at near-indifferent sims; bound
+        # each flip by 35% of the max rate and the average much tighter.
+        # The 4096-sim slow test below pins the convergence.
         diff = np.abs(streamed.deltas.values - base.deltas.values)
         assert float(diff.max()) <= 0.35 * 80.0
         assert float(diff.mean()) <= 0.02 * 80.0
@@ -164,13 +154,10 @@ class TestStreamedValuation:
     @pytest.mark.slow
     def test_streamed_meshed_pallas_converges_at_4096(self, monkeypatch):
         """The 512-sim composition gap above is policy-flip noise: at 4096
-        sims the streamed+meshed+Pallas NPV converges to the materialised
-        meshless one (measured rel 9.7e-5 when pinned, 2026-08-18; asserted
-        with 5x headroom)."""
+        sims the streamed+meshed NPV converges to the materialised meshless
+        one."""
         from storage_tpu.parallel.mesh import paths_mesh
 
-        monkeypatch.setenv("STORAGE_TPU_PALLAS", "interpret")
-        monkeypatch.setenv("STORAGE_TPU_QUANTIZE_WEIGHTS", "1")
         base = _value(num_sims=4096)
         monkeypatch.setenv("STORAGE_TPU_MAX_PATH_BYTES", "1000")
         streamed = _value(num_sims=4096, mesh=paths_mesh())
